@@ -1,11 +1,11 @@
 """Batch-size sweep of the official bench (VERDICT r2 item 1c / r3 weak #8).
 
 Runs bench.py at B in {1024, 2048, 4096} sequentially IN-PROCESS-SEPARATE
-invocations (one TPU process at a time) and records the curve. Each new B
+invocations (one GPU process at a time) and records the curve. Each new B
 is a fresh XLA program (slow first compile through the relay; cached
 afterwards).
 
-Usage: python benchmarks/bench_batch_sweep.py [B ...]  (TPU env)
+Usage: python benchmarks/bench_batch_sweep.py [B ...]  (GPU)
 """
 import json
 import os

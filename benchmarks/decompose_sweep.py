@@ -9,7 +9,7 @@ selected: B=256 n=128 k=8 g=4 reuse-64):
   - eval_fn at the exact sweep widths
   - vmap(step) + legal_mask_batch at sweep width
 
-Usage: python benchmarks/decompose_sweep.py [fast|sel]  (TPU, ONE process)
+Usage: python benchmarks/decompose_sweep.py [fast|sel]  (GPU, one process)
 """
 import os
 import sys
@@ -18,10 +18,10 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def timeit(name, fn, *args, iters=6):
@@ -154,8 +154,8 @@ def main():
     ev = jax.jit(lambda s: eval_fn(s))
     timeit(f"eval_fn(real) at W={W}", ev, stw)
 
-    from p3achygo_tpu.ops.liberties import point_liberties_auto
-    libs = jax.jit(lambda s: point_liberties_auto(s.stones, s.chain_id))
+    from p3achygo_tpu.game.board import point_liberties_batch
+    libs = jax.jit(lambda s: point_liberties_batch(s.stones, s.chain_id))
     timeit(f"point_liberties at W={W}", libs, stw)
 
     from p3achygo_tpu.features import batched_features

@@ -1,10 +1,9 @@
 """Dump compiled HLO of model.apply at search width for fusion analysis.
 
-Usage: python benchmarks/dump_model_hlo.py [W] [config] (TPU env, ONE process)
+Usage: python benchmarks/dump_model_hlo.py [W] [config] (GPU, one process)
 Writes /tmp/model_hlo_{config}_{W}.txt and prints a fusion census:
 per-fusion op mix and output bytes, to see which elementwise passes are
-NOT fused into convolutions (the round-3 finding: 313 ms model, 74 ms
-convs, the rest BN/mish HBM streaming).
+NOT fused into convolutions (BN/mish memory streaming).
 """
 import os
 import re
@@ -14,10 +13,10 @@ from collections import defaultdict
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def main():

@@ -14,7 +14,7 @@ BOTH production tiers (selected n=128/k=8, fast n=32/k=5 — bench.py's
 reference mix).
 
 Usage: python benchmarks/group_strength_proxy.py [G] [games] [ckpt|random]
-       [tiers: both|selected|fast]   (TPU env, ONE process)
+       [tiers: both|selected|fast]   (GPU, one process)
 """
 import os
 import sys
@@ -22,17 +22,16 @@ import sys
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
 
-# Trained-weights default: the newest golden of the round-4 curve run
-# (runs/ is wiped between rounds; results/curve-r4 keeps committed
-# copies of gen0/mid/final checkpoints for exactly this use).
+compile_cache.enable(min_compile_secs=5)
+
+
+# Trained-weights default: the newest golden of a local curve run
+# (checkpoints are made at run time under runs/; none are committed).
 def _default_ckpt():
-    for root in ("runs/curve-r4", "results/curve-r4", "runs/curve15"):
+    for root in ("runs/curve-r4", "runs/curve15"):
         base = os.path.join(os.path.dirname(__file__), "..", root)
         if not os.path.isdir(base):
             continue

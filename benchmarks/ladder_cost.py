@@ -5,7 +5,7 @@ VERDICT r2 missing #3: the reference fills planes 13-14 unconditionally
 measurement. Measure laddered_stones + full featurize at the real sweep
 widths so the gate carries a number (or gets flipped).
 
-Usage: python benchmarks/ladder_cost.py  (TPU env, ONE process)
+Usage: python benchmarks/ladder_cost.py  (GPU, one process)
 """
 import os
 import sys
@@ -14,10 +14,10 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def timeit(name, fn, *args, iters=6):

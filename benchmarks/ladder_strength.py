@@ -2,8 +2,8 @@
 
 The reference feeds exact ladder planes 13-14 to the net on every query
 (go_features.cc:38-62); this repo's production nets are ladder-blind
-(planes off: in-sweep cost x1570, TPU fault at W=15360 —
-results/ladder_cost_r4.log). This probe measures what blindness costs on
+(planes off: the ladder reader is far too costly inside the search
+sweep, benchmarks/ladder_cost.py). This probe measures what blindness costs on
 the canonical decision ladders exist for: the DEFENDER's escape choice.
 
 Setup: white stone at (r, c) in atari against a black N/W driving wall —

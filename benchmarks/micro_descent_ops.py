@@ -4,7 +4,7 @@ Compares the per-level cost of the CURRENT while-body ops (per-lane
 single-point gathers + multi-index path scatter) against one-hot einsum
 equivalents, at B=768, L=20 (k=5 g=4), N=98, D=24.
 
-Usage: python benchmarks/micro_descent_ops.py  (TPU env, ONE process)
+Usage: python benchmarks/micro_descent_ops.py  (GPU, one process)
 """
 import os
 import sys
@@ -13,10 +13,10 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 B, L, N, A, D, G = 768, 20, 98, 362, 24, 4
 W = B * L
@@ -47,7 +47,7 @@ def main():
     bw = jnp.arange(W) // L
     lane = jnp.arange(W)
 
-    # 10 repeats inside jit to amortize dispatch (~8 ms host->device).
+    # 10 repeats inside jit to amortize host->device dispatch.
     def rep(f):
         def run(*args):
             out = f(*args)

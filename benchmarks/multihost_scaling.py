@@ -1,7 +1,7 @@
 """Multi-process env-steps/s scaling measurement on the CPU mesh.
 
-SURVEY §2.13 →TPU criterion: ">=80% env-steps/s scaling efficiency 1→N
-hosts". No multi-host TPU hardware is available here, so this harness
+SURVEY §2.13 criterion: ">=80% env-steps/s scaling efficiency 1→N
+hosts". This harness
 measures the MECHANISM on CPU: the FULL tiered selfplay step (per-board
 playout-cap tiers, tree reuse, grouped visits) runs as one SPMD program
 over a jax.distributed cluster of {1, 2, 4} processes x 2 virtual devices,
@@ -14,7 +14,7 @@ denominator (single trial, ±10%) and only N=2. Now:
   - CORE-FAIR pairs: every process in a comparison gets the same core
     share via taskset (2-core share for the 1→2 pair; 1-core share for
     the 1→2→4 series), so adding a process adds compute like adding a
-    TPU host would.
+    host would.
   - ≥5 trials for 1p baselines, 3 for multi-proc, medians reported.
   - DECOMPOSITION: each run times (a) the pure SPMD step loop with NO
     host work and (b) the full loop with harvest+recycle, separating the
@@ -25,8 +25,8 @@ denominator (single trial, ±10%) and only N=2. Now:
   - workers share the persistent CPU compile cache (trial 2+ skip
     compiles).
 
-Weak scaling: each process owns B_LOCAL boards; ideal = tput(N) scales
-linearly in N. Efficiency(N) = tput(Np) / (N * tput(1p, same core share)).
+Weak scaling: each process owns B_LOCAL boards; ideal = rate(N) scales
+linearly in N. Efficiency(N) = rate(Np) / (N * rate(1p, same core share)).
 
 Usage: PYTHONPATH= JAX_PLATFORMS=cpu python benchmarks/multihost_scaling.py
 Writes MULTIHOST.md at the repo root.
@@ -63,7 +63,7 @@ import jax
 # fix: a PER-PROCESS cache dir — no cross-process sharing or races, all
 # workers see identical hit/miss timing, and trial 2+ still skips every
 # compile (each pid re-reads its own dir across trials).
-if CACHE != "none":
+if CACHE != "none" and not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
     cache_dir = CACHE if nproc == 1 else f"{CACHE}_p{pid}of{nproc}"
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
@@ -303,7 +303,7 @@ def main():
     lines = [
         "# Multi-host scaling measurement (CPU mesh)",
         "",
-        "SURVEY §2.13 →TPU criterion: >=80% env-steps/s scaling efficiency",
+        "SURVEY §2.13 criterion: >=80% env-steps/s scaling efficiency",
         "1→N hosts. Measured on the CPU mesh (the only multi-process",
         "environment available): jax.distributed cluster of N processes x 2",
         "virtual devices, FULL production selfplay path (tiered search",
@@ -314,7 +314,7 @@ def main():
         "every process in a comparison the same core share; 1p baselines are",
         "5-trial medians (round-3's single-trial denominator was ±10%).",
         "",
-        "`step-only` times the pure SPMD program (what a real TPU pod",
+        "`step-only` times the pure SPMD program (what a real cluster",
         "executes); `full` adds the host-python harvest, which on a real pod",
         "runs on per-host CPUs that do NOT also execute the XLA program —",
         "here it steals the same cores, so step-only is the mechanism number.",

@@ -1,7 +1,7 @@
 """Cross-move NN cache probe (VERDICT item: nn_interface.h:206-228 LRU).
 
 The reference keeps a per-thread 2^20-entry LRU keyed (hash, color) so NN
-evals of positions revisited across moves are skipped. On TPU, tree reuse
+evals of positions revisited across moves are skipped. Here, tree reuse
 already carries the played line's subtree (with its evals) to the next
 move; this probe measures how many of the REMAINING evals (fresh
 allocations) hit positions evaluated during the previous move's search —

@@ -1,6 +1,6 @@
 """Profile the full selfplay step on the chip; aggregate hot fusions.
 
-Usage: python benchmarks/profile_step.py  (TPU env, one process)
+Usage: python benchmarks/profile_step.py  (GPU, one process)
 """
 import json
 import os
@@ -10,11 +10,11 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
+
 
 
 def main():

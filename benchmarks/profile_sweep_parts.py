@@ -1,11 +1,10 @@
-"""Break the in-search NN eval wrapper into parts (the int8 probe's side
-finding: featurize+eval at W=4096 timed ~90 ms vs the standing "model fwd
-11 ms" note — find out where the wrapper cost lives).
+"""Break the in-search NN eval wrapper into parts: find out where the
+featurize + eval cost lives beside the model forward itself.
 
 The search evaluates leaves at lane width W = B_tier * k * visit_group:
 fast tier 768*5*4 = 15360, selected tier 256*8*4 = 8192 (first round).
 Times, at those widths:
-  - point_liberties (Pallas) alone
+  - the batched liberty pass alone
   - batched_features (no ladders)
   - plane-level symmetrize (current 8x one-hot gather accumulation)
   - STATE-level symmetrize (candidate: flip/transpose selects on the int8
@@ -13,7 +12,7 @@ Times, at those widths:
   - model.apply alone
   - full eval_fn (current) vs full eval_fn_v2 (state-level symmetrize)
 
-Usage: python benchmarks/profile_sweep_parts.py  (TPU env, ONE process)
+Usage: python benchmarks/profile_sweep_parts.py  (GPU, one process)
 """
 import os
 import sys
@@ -22,10 +21,10 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def timeit(name, fn, *args, iters=10):
@@ -46,7 +45,7 @@ def main():
     from p3achygo_tpu.game.symmetry import NUM_SYMMETRIES, SYM_GATHER
     from p3achygo_tpu.mcts.gumbel import make_eval_fn
     from p3achygo_tpu.models import build_model, get_config, init_params
-    from p3achygo_tpu.ops.liberties import point_liberties_auto
+    from p3achygo_tpu.game.board import point_liberties_batch
 
     model = build_model(get_config("b12c128btl3"), dtype=jnp.bfloat16)
     variables = init_params(model, jax.random.PRNGKey(0))
@@ -75,7 +74,7 @@ def main():
 
     @jax.jit
     def libs_only(states):
-        return point_liberties_auto(states.stones, states.chain_id)
+        return point_liberties_batch(states.stones, states.chain_id)
 
     @jax.jit
     def sym_planes(planes, h):
@@ -118,7 +117,7 @@ def main():
         print(f"W={W}:", flush=True)
         planes, scalars = feats(sts)
         jax.block_until_ready(planes)
-        timeit("point_liberties (pallas)", libs_only, sts)
+        timeit("point_liberties_batch", libs_only, sts)
         timeit("batched_features        ", feats, sts)
         timeit("sym planes (8x one-hot) ", sym_planes, planes, sts.hash[:, 0])
         timeit("sym STATE (flip/select) ", sym_state, sts)

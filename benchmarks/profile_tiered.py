@@ -7,7 +7,7 @@ Times each piece separately:
   - compact_subtree at the two widths
   - tree gather/scatter (the tier permutation)
 
-Usage: python benchmarks/profile_tiered.py  (TPU env, ONE process)
+Usage: python benchmarks/profile_tiered.py  (GPU, one process)
 """
 import os
 import sys
@@ -16,11 +16,11 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
+
 
 
 def timeit(name, fn, *args, iters=4):

@@ -1,7 +1,7 @@
 """Micro-benchmarks (counterpart of the reference's committed
 board_bench.md / gumbel_bench.md google-benchmark outputs).
 
-Run on the TPU chip: python benchmarks/run_benchmarks.py
+Run on the GPU: python benchmarks/run_benchmarks.py
 Writes benchmarks/results.md.
 """
 from __future__ import annotations
@@ -15,10 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 RESULTS = []
 _OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results.md")
@@ -26,7 +26,8 @@ _OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results.md")
 
 def _flush():
     with open(_OUT, "w") as f:
-        f.write("# Benchmark results (v5e-lite, 1 chip)\n\n")
+        d = jax.devices()[0]
+        f.write(f"# Benchmark results ({d.platform}, {d.device_kind})\n\n")
         f.write(f"date: {time.strftime('%Y-%m-%d %H:%M')}\n\n")
         f.write("| benchmark | value |\n|---|---|\n")
         for name, v in RESULTS:
@@ -75,7 +76,6 @@ def main():
         uniform_eval_fn,
     )
     from p3achygo_tpu.models import build_model, get_config, init_params
-    from p3achygo_tpu.ops.liberties import point_liberties_batch
 
     B = 1024
     states = jax.vmap(lambda _: new_state())(jnp.arange(B))
@@ -89,10 +89,6 @@ def main():
                     move_count=st.move_count
                     + legal_mask_batch(st)[:, 0].astype(jnp.int32)),
                 states)
-    timeit_loop(f"pallas point_liberties (B={B})",
-                lambda acc: acc + point_liberties_batch(
-                    states.stones, states.chain_id).sum(axis=1),
-                jnp.zeros((B,), jnp.int32))
 
     for n, k in ((8, 4), (32, 4), (128, 8)):
         params = SearchParams(n=n, k=k, max_depth=24)

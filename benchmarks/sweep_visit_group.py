@@ -5,7 +5,7 @@ n=32 k=5 @B=768, mid-game trees, reuse on) at g in {1, 4, 8, 16} to map
 the grouped-visit lever (gumbel.py SearchParams.visit_group). Strength
 impact is measured separately by benchmarks/group_strength_proxy.py.
 
-Usage: python benchmarks/sweep_visit_group.py  (TPU env, ONE process)
+Usage: python benchmarks/sweep_visit_group.py  (GPU, one process)
 """
 import os
 import sys
@@ -14,11 +14,11 @@ import time
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
+
 
 
 def timeit(name, fn, *args, iters=4):

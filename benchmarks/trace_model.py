@@ -1,9 +1,9 @@
 """Trace model.apply at search width; aggregate hot fusions by op kind.
 
-Finds where the 313 ms at W=15360 goes (decompose_sweep.py follow-up:
-convolutions were only ~82 ms in the search trace — what are the rest?).
+Finds where the model's time at W=15360 goes beyond the convolutions
+(decompose_sweep.py follow-up).
 
-Usage: python benchmarks/trace_model.py [W] (TPU env, ONE process)
+Usage: python benchmarks/trace_model.py [W] (GPU, one process)
 """
 import glob
 import gzip
@@ -16,10 +16,10 @@ from collections import defaultdict
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def aggregate(outdir, topn=25):

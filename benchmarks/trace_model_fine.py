@@ -1,11 +1,11 @@
 """Per-fusion breakdown of model.apply at search width + HLO op mapping.
 
-Round-4 follow-up to trace_model.py: the coarse aggregate buckets 145 ms
-into 'fusion.*' — this prints each fusion's time AND greps the compiled
+Follow-up to trace_model.py, whose coarse aggregate buckets most of the
+time into 'fusion.*' — this prints each fusion's time AND greps the compiled
 HLO for that fusion's computation body so we can see which model ops it
 streams (BN/mish chains, residual adds, head reductions...).
 
-Usage: python benchmarks/trace_model_fine.py [W] (TPU env, ONE process)
+Usage: python benchmarks/trace_model_fine.py [W] (GPU, one process)
 """
 import glob
 import gzip
@@ -19,10 +19,10 @@ from collections import defaultdict
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def fusion_times(outdir):

@@ -1,6 +1,6 @@
 """Trace one mid-game tier search; aggregate hot fusions from the profile.
 
-Usage: python benchmarks/trace_search.py [sel|fast]  (TPU env, ONE process)
+Usage: python benchmarks/trace_search.py [sel|fast]  (GPU, one process)
 """
 import glob
 import gzip
@@ -13,11 +13,11 @@ from collections import defaultdict
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
+
 
 
 def aggregate(outdir):
@@ -27,7 +27,7 @@ def aggregate(outdir):
     latest = max(files, key=os.path.getmtime)
     with gzip.open(latest, "rt") as f:
         trace = json.load(f)
-    # Keep TPU device op events only (pid of device track).
+    # Keep device op events only (pid of device track).
     by_name = defaultdict(float)
     total = 0.0
     for ev in trace.get("traceEvents", []):

@@ -6,7 +6,7 @@ TRAINED checkpoint at BOTH production tiers (n=128/k=8 and n=32/k=5):
 one side searches with visit_group=4, the other with visit_group=1,
 same weights, color-balanced.
 
-Usage (TPU, ONE process; expects a trained run dir):
+Usage (GPU, one process; expects a trained run dir):
   python benchmarks/visit_group_ab.py --run-dir runs/curve15 \
       --games 512 --tier fast|selected
 """
@@ -17,10 +17,10 @@ import sys
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from p3achygo_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable(min_compile_secs=5)
 
 
 def main():

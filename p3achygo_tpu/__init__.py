@@ -1,4 +1,4 @@
-"""p3achygo_tpu: a TPU-native AlphaZero Go framework.
+"""p3achygo_tpu: an AlphaZero Go framework written as one JAX array program.
 
 Brand-new JAX/XLA/Pallas re-design of the capabilities of
 p3achyjr/p3achygo (see SURVEY.md): vectorized rules engine, batched

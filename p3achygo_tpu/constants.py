@@ -1,7 +1,7 @@
 """Framework-wide constants.
 
 Mirrors the reference's cc/constants/constants.h:7-84 and
-python/constants.py, re-expressed for the TPU-native engine.
+python/constants.py, re-expressed for the array-program engine.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ checkpoints, selfplay chunks, golden chunks) through a store with `.done`
 markers gating visibility (cc/data/filename_format.h:14-15,
 shuffler tf_record_watcher semantics).
 
-TPU redesign notes: on a TPU pod the bus is typically GCS or a shared
+Redesign notes: on a cluster the bus is typically GCS or a shared
 NFS mount; both reduce to the same Store interface. `LocalStore` (a
 rooted directory with atomic tmp+rename publishes) covers single-host
 runs, tests, and NFS; `GcsStore` binds lazily to google-cloud-storage so

@@ -1,7 +1,7 @@
 """Per-player eval search configuration (mirrors cc/eval/player_config.h:
 21-109 + its key:value file parser :111-240).
 
-Only the knobs meaningful to the TPU search are carried; the reference's
+Only the knobs meaningful to the lockstep search are carried; the reference's
 parallel-search selectors (collision policies etc.) have no equivalent
 here by design (see mcts/puct.py docstring).
 """

@@ -1,6 +1,6 @@
 """Experiments layer (cc/experiments/, SURVEY §2.9).
 
-Batched TPU ports of the reference's research harnesses:
+Batched ports of the reference's research harnesses:
 
 - visits_study: Gumbel visit-count study (gumbel_visits_study.cc) — KLD
   between a ground-truth improved policy and N-visit searches seeded with

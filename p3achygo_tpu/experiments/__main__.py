@@ -9,9 +9,9 @@
       --chunk_path runs/demo/chunks/chunk_0001.tfrecord.zz \
       --num_examples 64 --seed_visits 30 --gt_n 2048
 
-`--model_path` is an orbax checkpoint dir (the export chain's engine files
-are N/A on TPU); `--model_config` + no model_path runs a random-init net
-(useful for harness smoke tests).
+`--model_path` is a checkpoint dir (train/checkpoint.py; the reference's
+exported engine files have no counterpart here); `--model_config` + no
+model_path runs a random-init net (useful for harness smoke tests).
 """
 from __future__ import annotations
 
@@ -150,4 +150,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from p3achygo_tpu import compile_cache
+
+    compile_cache.enable()
     sys.exit(main())

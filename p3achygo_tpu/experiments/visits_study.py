@@ -8,7 +8,7 @@ for each N in a sweep. Each N-visit Gumbel search is first seeded with
 search_root_puct(return_tree=True) -> init_tree, mirroring RunSeededGumbel
 (gumbel_visits_study.cc:219-241).
 
-TPU redesign: the reference's per-example loop collapses into ONE lockstep
+Redesign: the reference's per-example loop collapses into ONE lockstep
 batch per (search kind, N): all positions search simultaneously. The fixed
 per-position seed trick (gumbel_visits_study.cc:427-429: same Gumbel noise
 => same top-K actions across GT and every N) is preserved by passing the

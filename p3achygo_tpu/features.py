@@ -10,7 +10,7 @@ Mirrors cc/nn/engine/go_features.cc:10-62 exactly:
   scalars: [own==B, own==W, pass flags for last-5 moves, signed komi/15]
 
 Single-state function; vmap for batches. Output layout is NHWC
-([19, 19, 15]) so convs hit the MXU without transposes.
+([19, 19, 15]) so convs read it without transposes.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from p3achygo_tpu.constants import (
     NUM_LOCS,
     WHITE,
 )
-from p3achygo_tpu.game.board import GoState, point_liberties
+from p3achygo_tpu.game.board import GoState, point_liberties, point_liberties_batch
 from p3achygo_tpu.game.ladder import laddered_stones
 
 
@@ -99,10 +99,9 @@ def features(state: GoState, include_ladders: bool = True,
 def batched_features(states: GoState, include_ladders: bool = False,
                      planes_dtype=jnp.float32
                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """[B] states -> (planes [B,19,19,15], scalars [B,8]); Pallas libs."""
-    from p3achygo_tpu.ops.liberties import point_liberties_auto
-
-    libs = point_liberties_auto(states.stones, states.chain_id)
+    """[B] states -> (planes [B,19,19,15], scalars [B,8]) from one
+    batched liberty pass."""
+    libs = point_liberties_batch(states.stones, states.chain_id)
     return jax.vmap(
         lambda s, l: features(s, include_ladders, l, planes_dtype)
     )(states, libs)

@@ -14,9 +14,12 @@ from p3achygo_tpu.game.board import (  # noqa: F401
     is_game_over,
     legal_mask,
     new_state,
+    legal_mask_batch,
     point_liberties,
+    point_liberties_batch,
     step,
     superko_violation,
 )
+from p3achygo_tpu.game.playout import random_positions  # noqa: F401
 from p3achygo_tpu.game.scoring import compute_pass_alive, score  # noqa: F401
 from p3achygo_tpu.game.dsl import board_from_dsl, parse_dsl, render  # noqa: F401

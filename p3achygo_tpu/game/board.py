@@ -1,6 +1,6 @@
 """Vectorized, jit-able Go rules engine.
 
-TPU-native replacement for the reference's sequential C++ engine
+Array-program replacement for the reference's sequential C++ engine
 (cc/game/board.{h,cc}: GroupTracker, capture resolution, positional superko
 via seen-hash set at board.cc:637-639, self-capture ban board.cc:900-914,
 area scoring board.cc:916-988). Instead of incremental DFS group tracking,
@@ -23,7 +23,7 @@ every board op is a fixed-shape array program over a [361] lattice:
 
 All functions below operate on a single board and are `jax.vmap`-ed for the
 batch axis; under vmap every op stays dense and fixed-shape so thousands of
-boards step in lockstep on one TPU core.
+boards step in lockstep on one device.
 """
 from __future__ import annotations
 
@@ -137,9 +137,8 @@ def chain_lib_counts(stones: jnp.ndarray, chain_id: jnp.ndarray) -> jnp.ndarray:
 
     Each empty point contributes one liberty to each *distinct* adjacent
     chain; distinctness among the <=4 neighbors is resolved with pairwise
-    compares. The histogram is a one-hot matmul rather than a scatter-add:
-    batched multi-index scatters lower to serialized loops on TPU (~30x
-    slower), while the one-hot contraction runs on the MXU.
+    compares. The histogram is a factorized one-hot matmul rather than a
+    scatter-add, so it is one dense contraction per board.
     (Replaces GroupTracker's incremental liberty sets, cc/game/board.h:157.)
     """
     empty = stones == EMPTY  # [361]
@@ -169,6 +168,14 @@ def point_liberties(stones: jnp.ndarray, chain_id: jnp.ndarray) -> jnp.ndarray:
     counts = chain_lib_counts(stones, chain_id)
     gathered = counts[jnp.clip(chain_id, 0, _SENTINEL)]
     return jnp.where(stones != EMPTY, gathered, 0)
+
+
+def point_liberties_batch(stones: jnp.ndarray,
+                          chain_id: jnp.ndarray) -> jnp.ndarray:
+    """[B, 361] stones + chain ids -> [B, 361] int32 per-point liberty
+    counts. The one liberty pass of the hot path: every descent level's
+    legality mask and every leaf's features."""
+    return jax.vmap(point_liberties)(stones, chain_id)
 
 
 def compute_chains(stones: jnp.ndarray) -> jnp.ndarray:
@@ -480,11 +487,8 @@ def legal_mask(state: GoState) -> jnp.ndarray:
 
 
 def legal_mask_batch(states: GoState) -> jnp.ndarray:
-    """Batched legality mask [B, 362] via the Pallas liberty kernel on TPU
-    (the per-point libs gather is a serialized generic gather under XLA)."""
-    from p3achygo_tpu.ops.liberties import point_liberties_auto
-
-    libs = point_liberties_auto(states.stones, states.chain_id)
+    """Batched legality mask [B, 362] from one batched liberty pass."""
+    libs = point_liberties_batch(states.stones, states.chain_id)
     return jax.vmap(legal_mask_from_libs)(states, libs)
 
 

@@ -2,7 +2,7 @@
 
 The reference reads ladders with a recursive forking solver capped at depth
 300 (cc/game/board.cc:692-899 GetLadderedStones). Recursion and forking
-don't map to lockstep TPU execution, so this is a *bounded greedy chase*:
+don't map to lockstep execution, so this is a *bounded greedy chase*:
 
 - Candidate chains: up to `MAX_CANDIDATES` chains with 1 or 2 liberties.
 - Chase loop (static `MAX_DEPTH` iterations, masked when resolved):

@@ -60,7 +60,7 @@ def apply_symmetry_grid_batch(grid: jnp.ndarray,
     """Per-board D4 transform of [B, 361] grids (any dtype), batched.
 
     Decomposes each symmetry into flip/transpose selects instead of a
-    per-example gather (which serializes on TPU) or an 8-way one-hot
+    per-example gather or an 8-way one-hot
     gather accumulation (8x the array traffic): col-flip if sym >= 4,
     then rot90^k as (transpose if k odd, row-flip if k in {1,2},
     col-flip if k in {2,3}) — exactly _transform_grid's convention, so

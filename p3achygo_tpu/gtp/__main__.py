@@ -9,12 +9,16 @@ import jax.numpy as jnp
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--checkpoint", default="", help="orbax checkpoint path")
+    ap.add_argument("--checkpoint", default="",
+                    help="checkpoint directory (train/checkpoint.py)")
     ap.add_argument("--model", default="b12c128btl3")
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--k", type=int, default=8)
     args = ap.parse_args()
 
+    from p3achygo_tpu import compile_cache
+
+    compile_cache.enable()
     from p3achygo_tpu.gtp.service import GtpConfig, GtpService, run_stdin_loop
     from p3achygo_tpu.mcts.gumbel import SearchParams, make_eval_fn
     from p3achygo_tpu.models import build_model, get_config, init_params

@@ -6,7 +6,7 @@ plus the last two moves and mover color) share a cache entry tracking the
 NN's observed value error there, and fresh evaluations of matching
 patterns are corrected by lambda * (weighted error / weighted visits).
 
-TPU design: a per-board open-addressed device table (same machinery as
+Array design: a per-board open-addressed device table (same machinery as
 tree.McgsTable) keyed by two 32-bit pattern-hash lanes. Leaves FETCH
 their correction at creation (probe + payload read via exact one-hot
 contractions); the error statistics are ACCUMULATED once at the END of
@@ -79,8 +79,8 @@ def _window_values(grid_flat: jnp.ndarray, center: jnp.ndarray,
                    off_board_val: int) -> jnp.ndarray:
     """[W, 361] per-lane grids + [W] centers -> [W, 25] 5x5 window values.
 
-    Static shifted-slice dot products against the center one-hot (per-lane
-    window gathers would serialize on TPU).
+    Static shifted-slice dot products against the center one-hot instead
+    of per-lane window gathers.
     """
     W = grid_flat.shape[0]
     g = grid_flat.reshape(W, BOARD_LEN, BOARD_LEN).astype(jnp.float32)

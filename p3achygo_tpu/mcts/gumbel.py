@@ -1,11 +1,11 @@
 """Batched Gumbel AlphaZero root search (sequential halving), pure JAX.
 
-Re-designs cc/mcts/gumbel.cc for lockstep TPU execution: the reference runs
+Re-designs cc/mcts/gumbel.cc for lockstep array execution: the reference runs
 one sequential-halving search per CPU thread with an out-of-process batched
 NN server; here a whole batch of boards searches simultaneously as one
 array program, and the NN evaluates all B leaves in-graph once per
 simulation — batching is the array axis, no inference server needed
-(SURVEY.md §2.2 →TPU note).
+(SURVEY.md §2.2 redesign note).
 
 Semantics mirrored from the reference:
 - Gumbel noise + logit + q-transform ranking, sequential halving rounds
@@ -49,6 +49,7 @@ from p3achygo_tpu.game.board import (
     is_game_over,
     legal_mask,
     legal_mask_batch,
+    point_liberties_batch,
     step,
 )
 from p3achygo_tpu.features import batched_features
@@ -138,7 +139,7 @@ class SearchParams:
     # MCGS graph search (McgsNodeTable, node_table.h:78-120): leaves probe a
     # per-board (hash, color, terminal)-keyed transposition table before
     # allocating, so transposed positions share one node and its stats pool
-    # across paths. See tree.py McgsTable for the TPU design + deviations.
+    # across paths. See tree.py McgsTable for the design + deviations.
     use_mcgs: bool = False
     # Local-pattern value-bias cache (bias_cache.h; see mcts/bias.py).
     # lambda 0 = disabled (the reference's default, selfplay/main.cc:58);
@@ -181,9 +182,7 @@ class GumbelResult(NamedTuple):
 def make_eval_fn(model, variables, symmetrize: bool = True,
                  include_ladders: bool = False,
                  p_opt_weight: float = 0.0,
-                 use_fused_trunk: Optional[bool] = None,
-                 serve_fold: bool = False,
-                 serve_q_scales=None) -> EvalFn:
+                 serve_fold: bool = False) -> EvalFn:
     """NN eval adapter: featurize states, run the model, reduce outputs.
 
     With `symmetrize`, each query is evaluated under a D4 symmetry picked
@@ -207,39 +206,8 @@ def make_eval_fn(model, variables, symmetrize: bool = True,
     score_values = (jnp.arange(NUM_SCORE_LOGITS, dtype=jnp.float32)
                     - SCORE_INFLECTION_POINT + 0.5)
 
-    # Optional serving path: swap the trunk for the fused Pallas kernel
-    # (p3achygo_tpu/nn/trunk_kernel.py — the reference's TRT-engine
-    # counterpart, trt_engine.cc). MEASURED SLOWER at HEAD, twice:
-    # v1 636 ms vs 325 flax at W=15360 (Mosaic relayouts on unaligned row
-    # shifts); v2 (trunk_kernel2.py, 16-board interleaved layout, ALL
-    # rolls tile-aligned) 584 ms vs 266 — the 9-tap [M,64]x[64,64] dot
-    # structure runs the MXU at ~25% where XLA's native 3x3 conv hits
-    # ~67% (benchmarks/results.md round 4), so fusing the elementwise
-    # traffic into the trunk costs more compute than it saves in HBM.
-    # Default OFF; parity locked by tests/test_trunk_kernel{,2}.py.
-    trunk_fn = None
-    if use_fused_trunk is None:
-        use_fused_trunk = False
-    if use_fused_trunk and getattr(model, "config", None) is not None:
-        from p3achygo_tpu.nn import build_trunk_fn, trunk_supported
-
-        if trunk_supported(model.config):
-            trunk_fn = build_trunk_fn(model.config, variables)
-
     serve_apply = None
-    if serve_q_scales is not None and getattr(model, "config", None) is not None:
-        # int8-activation serving graph (nn/serve_q.py, ROOFLINE.md lever
-        # #1). scales come from serve_q.calibrate on real positions;
-        # opt-in and bf16-default preserved pending strength validation
-        # (the visit_group precedent: benchmarks/results.md round 5).
-        from p3achygo_tpu.nn.serve_q import q_supported, serve_q_forward
-
-        if q_supported(model.config):
-            serve_apply = lambda planes, scalars: serve_q_forward(
-                model, variables, planes, scalars, scales=serve_q_scales,
-                want_optimistic=p_opt_weight > 0.0)
-    if serve_apply is None and serve_fold \
-            and getattr(model, "config", None) is not None:
+    if serve_fold and getattr(model, "config", None) is not None:
         from p3achygo_tpu.nn.serve import serve_forward, serve_supported
 
         if serve_supported(model.config):
@@ -255,10 +223,9 @@ def make_eval_fn(model, variables, symmetrize: bool = True,
     def eval_fn(states: GoState) -> EvalOutput:
         if symmetrize:
             # Symmetrize the STATE, not the planes: flip/transpose selects
-            # on the [B,361] int grids cost ~1/30th of the 8x one-hot
-            # gather accumulation over the [B,361,15] f32 planes it
-            # replaces (benchmarks/profile_sweep_parts.py: 4.3 ms vs
-            # 15.5 ms at W=15360, minus a full plane pass). chain_id
+            # on the [B,361] int grids move a fraction of the bytes of an
+            # 8x one-hot gather over the [B,361,15] planes, and save a
+            # full plane pass. chain_id
             # labels are arbitrary-but-consistent representative indices,
             # so permuting positions without remapping values keeps every
             # chain's label unique (liberty counts only compare labels).
@@ -283,8 +250,7 @@ def make_eval_fn(model, variables, symmetrize: bool = True,
         if serve_apply is not None:
             out = serve_apply(planes, scalars)
         else:
-            out = model.apply(variables, planes, scalars, train=False,
-                              trunk_fn=trunk_fn)
+            out = model.apply(variables, planes, scalars, train=False)
         pi_logits = out.pi_logits
         if p_opt_weight > 0.0:
             # Blend in probability space (the reference blends probs, not
@@ -538,7 +504,7 @@ def _nonroot_action(tree: Tree, node: jnp.ndarray, legal: jnp.ndarray,
     """Improved-policy-minus-visit-share argmax (gumbel.cc:214-237).
 
     `node` is [W] with W = B * k (lanes b-major); row-indexed tree state is
-    read with one-hot contractions (TPU generic gathers serialize).
+    read with one-hot contractions instead of generic per-row gathers.
     """
     pi, nvis, sum_children = _improved_policy_flat(tree, node, c_visit,
                                                    c_scale, bidx)
@@ -902,7 +868,7 @@ def search_root(key: jax.Array, states: GoState, eval_fn: EvalFn,
     # root takes no stat updates during search, so all k sims of a sweep are
     # independent: run them as one [B*k_r]-wide batched simulation.
     # Sequential sim steps drop from n to sum_r v_r and every NN eval
-    # batches B*k_r leaves onto the MXU. Each halving round is traced at
+    # batches B*k_r leaves into one forward. Each halving round is traced at
     # its OWN width W_r = B * k_r (round 2 of n=32,k=4 runs 8 of 12 sweeps
     # with only 2 live candidates — a fixed-width scan would spend ~33%
     # of all W-proportional work on dead lanes).
@@ -1247,10 +1213,8 @@ def search_root(key: jax.Array, states: GoState, eval_fn: EvalFn,
             # idempotent recompute subtracts obs_bias). The pattern slot
             # is remembered on the node for end-of-search accumulation.
             from p3achygo_tpu.mcts.bias import bias_probe, local_pattern_keys
-            from p3achygo_tpu.ops.liberties import point_liberties_auto
-
-            libs = point_liberties_auto(leaf_states.stones,
-                                        leaf_states.chain_id)
+            libs = point_liberties_batch(leaf_states.stones,
+                                         leaf_states.chain_id)
             atari = libs == 1
             ill_empty = (leaf_states.stones == 0) & ~leaf_legal[:, :361]
             bh0, bh1, bvalid = local_pattern_keys(
@@ -1364,8 +1328,8 @@ def search_root(key: jax.Array, states: GoState, eval_fn: EvalFn,
         bucket = jnp.clip(((qz + 1.0) / V_BUCKET_RANGE).astype(jnp.int32), 0,
                           NUM_V_BUCKETS - 1)
         nonleaf = on_path & ~is_leaf_slot
-        # One-hot contraction instead of scatter-add: batched multi-index
-        # scatters serialize on TPU; this is a small MXU matmul. All L*D
+        # One-hot contraction instead of a batched multi-index scatter-add:
+        # a small matmul. All L*D
         # path entries of a board fold into one [I, max_nodes] one-hot,
         # read ONCE for all seven node statistics (n/w/wz/score/var/varz +
         # the 51-bucket histogram) via a stacked [B, I, 57] value tensor —

@@ -5,7 +5,7 @@ num_hits / approximate unique-position count over a bounded LRU. The
 reference keeps a mutex-guarded per-process cache; nothing in its tree
 search consumes it (diagnostics only), and the same is true here.
 
-TPU adaptation: positions arrive as BATCHES of zobrist hash lanes
+Array adaptation: positions arrive as BATCHES of zobrist hash lanes
 (uint32[..., 2], the additive 128->64-bit lanes of game/board.py) pulled
 to host at harvest points, so insertion is batch-first; order within a
 batch follows array order like the reference's sequential Insert calls.

@@ -14,8 +14,8 @@ PuctSearchPolicy for the whole path), with:
   z in place of the reference's cached t quantiles).
 
 The in-tree parallel search machinery of the reference (virtual loss,
-collision policies, round barriers — cc/mcts/search.cc) has no TPU
-equivalent by design: batching is the board axis, so sims on one board are
+collision policies, round barriers — cc/mcts/search.cc) has no
+equivalent here by design: batching is the board axis, so sims on one board are
 sequential and exact, and the whole batch IS the parallelism.
 """
 from __future__ import annotations

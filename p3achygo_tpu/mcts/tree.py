@@ -51,8 +51,8 @@ class Tree(NamedTuple):
     like the reference's per-node child_visits, tree.h:44) in addition to
     the node arrays: in a tree (no transpositions) an edge's stats equal
     its child node's, and edge indexing lets the descent read all children
-    of a node with a one-hot row contraction instead of a TPU generic
-    gather (which lowers to a scalar loop, ~12 ms per [4096, 362] gather).
+    of a node with a one-hot row contraction instead of a generic
+    per-row gather.
     """
 
     # HBM-dtype notes: the [B, N, 362] arrays dominate sweep traffic
@@ -163,8 +163,8 @@ def make_tree(batch_size: int, max_nodes: int) -> Tree:
 def rows_by_node(arr: jnp.ndarray, node_bk: jnp.ndarray) -> jnp.ndarray:
     """Select per-node rows: arr [B, N, A] + node [B, k] -> [B, k, A].
 
-    One-hot MXU contraction over the (small) node axis — TPU generic
-    row-gathers serialize, this doesn't.
+    One-hot contraction over the (small) node axis instead of a generic
+    per-row gather.
     """
     N = arr.shape[1]
     oh = jax.nn.one_hot(node_bk, N, dtype=jnp.float32)
@@ -212,9 +212,9 @@ def child_visits(tree: Tree, node: jnp.ndarray,
 # MCGS transposition table (McgsNodeTable, node_table.h:78-120): nodes keyed
 # by (zobrist hash, color to move, is_terminal) so transposed positions share
 # one node — the tree becomes a DAG whose node + out-edge statistics pool
-# visits from every transposing path. TPU mapping: a per-board open-addressed
-# hash table probed with exact one-hot contractions (generic per-row gathers
-# serialize on TPU; 16-bit key halves are exact in f32).
+# visits from every transposing path. Array mapping: a per-board
+# open-addressed hash table probed with exact one-hot contractions (16-bit
+# key halves are exact in f32).
 #
 # Deviations (documented): inserts are deferred to the end of each k-wide
 # sweep, so two lanes reaching the same new position in one sweep create

@@ -1,18 +1,21 @@
-"""Trunk building blocks (flax.linen).
+"""Trunk building blocks (plain JAX over models/layers.Scope).
 
 Mirrors python/model.py's layer zoo (ConvBlock/make_conv_block at
 model.py:203-296, ClassicResidualBlock:330, BottleneckResidualConvBlock:372,
 NbtResidualBlock:431, BroadcastResidualBlock:490, GlobalPool:634,
 GlobalPoolBias:664) with pre-activation BN+mish conv blocks in NHWC.
 
-Compute dtype is configurable (bf16 on TPU); params and BN stats stay fp32.
+Compute dtype is configurable (bf16 for serving); params and BN stats stay
+fp32. Each block takes the Scope of its own name; sub-layer names are the
+variable tree's keys (nn/serve.py reads them).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from p3achygo_tpu.models.layers import Scope, batch_norm, conv, dense
 
 Dtype = Any
 
@@ -25,138 +28,75 @@ def mish(x):
     Clamping the exponent input at 20 keeps u^2 finite (e^40 << f32 max)
     and is exact: for x > 20 the ratio is 1 - 2e^-20 which rounds to 1.0f,
     i.e. mish(x) == x there anyway. For x -> -inf, u -> 0 and the ratio
-    -> 0.
-
-    Why branch-free matters on TPU: the previous formulation selected
-    between two rational functions with `where(x >= 0, ...)` — XLA:TPU
-    split that select out of the conv fusions and BIT-PACKED the predicate
-    through standalone shift-left/reduce-or passes (u32[W,19,C] aux
-    tensors): 60 ms of the 324 ms model forward at W=15360 was predicate
-    packing alone (benchmarks/results.md round-4). A single rational in u
-    fuses entirely into the convolution's input fusion.
+    -> 0. A single rational in u, with no select, fuses into the
+    neighbouring convolution's elementwise prologue.
     """
     u = jnp.exp(jnp.minimum(x, 20.0))
     n = u * u + 2.0 * u
     return x * n / (n + 2.0)
 
 
-class ConvBlock(nn.Module):
+def conv_block(s: Scope, x, features: int, kernel: int, dtype):
     """Pre-activation conv: BN -> mish -> 2D conv (bias-free).
 
     Matches make_conv_block (model.py:287-296): ConvPreActivation with
     BatchNorm(momentum=0.99, eps=1e-3).
     """
-
-    features: int
-    kernel: int
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        x = nn.BatchNorm(use_running_average=not train, momentum=0.99,
-                         epsilon=1e-3, dtype=self.dtype)(x)
-        x = mish(x)
-        x = nn.Conv(self.features, (self.kernel, self.kernel), use_bias=False,
-                    padding="SAME", dtype=self.dtype)(x)
-        return x
+    x = batch_norm(s.child("BatchNorm_0"), x, dtype)
+    return conv(s.child("Conv_0"), mish(x), features, kernel, dtype)
 
 
-class ClassicResidualBlock(nn.Module):
+def classic_block(s: Scope, x, features: int, conv_size: int, dtype,
+                  stack_size: int = 2):
     """x + conv(conv(x)) (model.py:330-371)."""
-
-    features: int
-    conv_size: int
-    stack_size: int = 2
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        for i in range(self.stack_size):
-            x = ConvBlock(self.features, self.conv_size, self.dtype,
-                          name=f"conv_{i}")(x, train)
-        return res + x
+    res = x
+    for i in range(stack_size):
+        x = conv_block(s.child(f"conv_{i}"), x, features, conv_size, dtype)
+    return res + x
 
 
-class BottleneckResidualBlock(nn.Module):
+def bottleneck_block(s: Scope, x, features: int, bottleneck: int,
+                     conv_size: int, stack_size: int, dtype):
     """1x1 reduce -> (stack_size-2) KxK convs -> 1x1 expand, residual
     (model.py:372-430)."""
-
-    features: int
-    bottleneck: int
-    conv_size: int
-    stack_size: int = 3
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        x = ConvBlock(self.bottleneck, 1, self.dtype, name="reduce")(x, train)
-        for i in range(self.stack_size - 2):
-            x = ConvBlock(self.bottleneck, self.conv_size, self.dtype,
-                          name=f"inner_{i}")(x, train)
-        x = ConvBlock(self.features, 1, self.dtype, name="expand")(x, train)
-        return res + x
+    res = x
+    x = conv_block(s.child("reduce"), x, bottleneck, 1, dtype)
+    for i in range(stack_size - 2):
+        x = conv_block(s.child(f"inner_{i}"), x, bottleneck, conv_size, dtype)
+    x = conv_block(s.child("expand"), x, features, 1, dtype)
+    return res + x
 
 
-class NbtResidualBlock(nn.Module):
+def nbt_block(s: Scope, x, features: int, bottleneck: int, conv_size: int,
+              dtype):
     """Nested bottleneck (KataGo-style, model.py:431-489): 1x1 reduce ->
     2 classic residual blocks at bottleneck width -> 1x1 expand, residual."""
-
-    features: int
-    bottleneck: int
-    conv_size: int
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        x = ConvBlock(self.bottleneck, 1, self.dtype, name="reduce")(x, train)
-        x = ClassicResidualBlock(self.bottleneck, self.conv_size,
-                                 dtype=self.dtype, name="nbt_res0")(x, train)
-        x = ClassicResidualBlock(self.bottleneck, self.conv_size,
-                                 dtype=self.dtype, name="nbt_res1")(x, train)
-        x = ConvBlock(self.features, 1, self.dtype, name="expand")(x, train)
-        return res + x
+    res = x
+    x = conv_block(s.child("reduce"), x, bottleneck, 1, dtype)
+    x = classic_block(s.child("nbt_res0"), x, bottleneck, conv_size, dtype)
+    x = classic_block(s.child("nbt_res1"), x, bottleneck, conv_size, dtype)
+    x = conv_block(s.child("expand"), x, features, 1, dtype)
+    return res + x
 
 
-class Broadcast(nn.Module):
+def broadcast_mix(s: Scope, x, dtype):
     """Per-channel global mix: dense over the flattened 361 spatial dims
-    (model.py:509-581 BroadcastPreAct: act -> flatten -> dense -> expand).
-
-    TPU note (measured round 4): a 4D dot_general 'bhwc,hwkl->bklc' was
-    tried to kill the transpose chain — the trace shows XLA materializes
-    the [19,19,W,C] transposed operand for the contraction EITHER WAY
-    (~10 ms per block at W=15360), and end-to-end the einsum form cost
-    ~3% of bench moves/s (594 -> 577, benchmarks/results.md). The explicit
-    transpose->Dense->transpose chain is kept: same HBM traffic, better
-    tiling at the mixed search widths."""
-
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        n, h, w, c = x.shape
-        x = mish(x)
-        x = jnp.transpose(x, (0, 3, 1, 2)).reshape(n, c, h * w)
-        x = nn.Dense(h * w, dtype=self.dtype)(x)
-        x = x.reshape(n, c, h, w)
-        return jnp.transpose(x, (0, 2, 3, 1))
+    (model.py:509-581 BroadcastPreAct: act -> flatten -> dense -> expand)."""
+    n, h, w, c = x.shape
+    x = mish(x)
+    x = jnp.transpose(x, (0, 3, 1, 2)).reshape(n, c, h * w)
+    x = dense(s.child("Dense_0"), x, h * w, dtype)
+    x = x.reshape(n, c, h, w)
+    return jnp.transpose(x, (0, 2, 3, 1))
 
 
-class BroadcastResidualBlock(nn.Module):
+def broadcast_block(s: Scope, x, features: int, dtype):
     """1x1 conv -> broadcast mix -> 1x1 conv, residual (model.py:583-625)."""
-
-    features: int
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        res = x
-        x = ConvBlock(self.features, 1, self.dtype, name="conv_first")(x, train)
-        x = Broadcast(self.dtype, name="mix")(x)
-        x = ConvBlock(self.features, 1, self.dtype, name="conv_last")(x, train)
-        return res + x
+    res = x
+    x = conv_block(s.child("conv_first"), x, features, 1, dtype)
+    x = broadcast_mix(s.child("mix"), x, dtype)
+    x = conv_block(s.child("conv_last"), x, features, 1, dtype)
+    return res + x
 
 
 def global_pool(x):
@@ -166,19 +106,10 @@ def global_pool(x):
                            axis=-1)
 
 
-class GlobalPoolBias(nn.Module):
+def global_pool_bias(s: Scope, x, g, channels: int, dtype):
     """x + dense(gpool(BN(mish(g)))) channelwise; returns (x, g_pooled)
     (model.py:655-724)."""
-
-    channels: int
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, g, train: bool = False):
-        g = nn.BatchNorm(use_running_average=not train, momentum=0.99,
-                         epsilon=1e-3, dtype=self.dtype,
-                         name="batch_norm_gpool")(g)
-        g = mish(g)
-        g_pooled = global_pool(g)
-        biases = nn.Dense(self.channels, dtype=self.dtype)(g_pooled)
-        return x + biases[:, None, None, :], g_pooled
+    g = mish(batch_norm(s.child("batch_norm_gpool"), g, dtype))
+    g_pooled = global_pool(g)
+    biases = dense(s.child("Dense_0"), g_pooled, channels, dtype)
+    return x + biases[:, None, None, :], g_pooled

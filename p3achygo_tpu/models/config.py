@@ -61,7 +61,7 @@ _CONFIGS = {
                                         num_heads=3, is_transformer=True,
                                         trunk_block_type="transformer",
                                         c_l2=0.0),
-    # Extra TPU-side config used by the benchmark north star (BASELINE.json:
+    # Extra config used by the benchmark north star (BASELINE.json:
     # b12c128 @ 19x19).
     "b12c128btl3": ModelConfig(blocks=12, broadcast_interval=4,
                                inner_bottleneck_layers=3, channels=128,

@@ -2,50 +2,32 @@
 
 361 board points as tokens with learned 2D positional embeddings; pre-LN
 self-attention + MLP. Single-device at 361 tokens (no sequence sharding
-needed, SURVEY.md §5 long-context note); attention hits the MXU as
+needed, SURVEY.md §5 long-context note); attention runs as
 [N, heads, 361, 361] batched matmuls.
 """
 from __future__ import annotations
 
-from typing import Any
+import jax
 
-import flax.linen as nn
-import jax.numpy as jnp
-
-Dtype = Any
+from p3achygo_tpu.models.layers import Scope, dense, layer_norm, self_attention
 
 
-class TransformerBlock(nn.Module):
-    embed_dim: int
-    num_heads: int
-    mlp_ratio: int = 4
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        # x: [N, H, W, C] -> tokens [N, HW, C]
-        n, h, w, c = x.shape
-        t = x.reshape(n, h * w, c)
-        y = nn.LayerNorm(dtype=self.dtype)(t)
-        y = nn.MultiHeadDotProductAttention(
-            num_heads=self.num_heads, qkv_features=self.embed_dim,
-            out_features=c, dtype=self.dtype)(y, y)
-        t = t + y
-        y = nn.LayerNorm(dtype=self.dtype)(t)
-        y = nn.Dense(self.mlp_ratio * c, dtype=self.dtype)(y)
-        y = nn.gelu(y)
-        y = nn.Dense(c, dtype=self.dtype)(y)
-        t = t + y
-        return t.reshape(n, h, w, c)
+def transformer_block(s: Scope, x, embed_dim: int, num_heads: int, dtype,
+                      mlp_ratio: int = 4):
+    # x: [N, H, W, C] -> tokens [N, HW, C]
+    n, h, w, c = x.shape
+    t = x.reshape(n, h * w, c)
+    y = layer_norm(s.child("LayerNorm_0"), t, dtype)
+    t = t + self_attention(s.child("MultiHeadDotProductAttention_0"), y,
+                           num_heads, embed_dim, dtype)
+    y = layer_norm(s.child("LayerNorm_1"), t, dtype)
+    y = jax.nn.gelu(dense(s.child("Dense_0"), y, mlp_ratio * c, dtype))
+    t = t + dense(s.child("Dense_1"), y, c, dtype)
+    return t.reshape(n, h, w, c)
 
 
-class PositionalEmbedding(nn.Module):
+def positional_embedding(s: Scope, x, dtype):
     """Learned additive 2D positional embedding."""
-
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        n, h, w, c = x.shape
-        pos = self.param("pos_embed", nn.initializers.normal(0.02), (h, w, c))
-        return x + pos.astype(self.dtype)
+    _, h, w, c = x.shape
+    pos = s.param("pos_embed", jax.nn.initializers.normal(0.02), (h, w, c))
+    return x + pos.astype(dtype)

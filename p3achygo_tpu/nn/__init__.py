@@ -1,14 +1,11 @@
-"""TPU-native serving engine (the reference's cc/nn/engine/ counterpart).
+"""Serving graph (the reference's cc/nn/engine/ counterpart).
 
 The reference serves search evals through a TensorRT engine built from the
-exported model (trt_engine.cc: fused, BN-folded, fp16). The TPU-native
-equivalent is `trunk_kernel.build_trunk_fn`: a fused Pallas forward of the
-residual trunk — BatchNorm folded to per-channel affine, one HBM
-round-trip for the whole trunk, weights VMEM-resident — swapped into the
-flax model via `P3achyGoModel.__call__(trunk_fn=...)` for the search
-path while training keeps the differentiable flax graph.
+exported model (trt_engine.cc: fused, BN-folded, fp16). Here that is
+`serve.serve_forward`: the same weights with BatchNorm folded into the
+producer convolutions and the training-only heads pruned, compiled by XLA
+inside the search program.
 """
-from p3achygo_tpu.nn.trunk_kernel import build_trunk_fn, trunk_supported
-from p3achygo_tpu.nn.trunk_kernel2 import build_trunk_fn_v2
+from p3achygo_tpu.nn.serve import serve_forward, serve_supported
 
-__all__ = ["build_trunk_fn", "build_trunk_fn_v2", "trunk_supported"]
+__all__ = ["serve_forward", "serve_supported"]

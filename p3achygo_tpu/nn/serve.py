@@ -3,8 +3,8 @@
 The reference builds a dedicated serving engine from the trained graph
 (cc/nn/engine/trt_engine.cc:177-215: TF graph -> ONNX -> TensorRT with
 fused BN and pruned training-only nodes, worth ~25% there,
-notes/journal.md:139). The TPU equivalent is a parameter-level rebuild of
-the forward pass:
+notes/journal.md:139). Here it is a parameter-level rebuild of the forward
+pass:
 
 * **BN fold.** At inference BatchNorm is an affine ``a*x + b`` per channel
   (a = scale/sqrt(var+eps), b = bias - mean*a). In a pre-activation
@@ -12,11 +12,10 @@ the forward pass:
   the affine folds into the *preceding* conv's kernel/bias
   (``conv(u, W*a) + b``), so the elementwise stream between convolutions
   shrinks to a single ``mish`` — XLA fuses that into the convolution
-  fusions instead of emitting standalone BN/mish HBM passes (28 ms of the
-  265 ms b12c128btl3 forward at W=15360, benchmarks/results.md round 4).
+  fusions instead of emitting standalone BN/mish memory passes.
   Chain-head ConvBlocks read the residual stream (consumed raw by the
   residual add as well), so their BN stays as an explicit precomputed
-  affine — still cheaper than flax BatchNorm's rsqrt + 4 param streams.
+  affine — still cheaper than a BatchNorm's rsqrt + 4 param streams.
 
 * **Head pruning.** Search consumes pi (+ optionally pi_optimistic),
   outcome, the score distribution, and q6_err (mcts/gumbel.py
@@ -28,8 +27,8 @@ Fold math runs on the *weights* inside the traced function (a few MB), so
 weights stay traced arguments — no per-generation recompiles — and XLA
 hoists the folded constants per call for free.
 
-Parity: tests/test_serve_fold.py (f32 near-exact + bf16 top-1 vs the flax
-graph, all trunk families).
+Parity: tests/test_serve_fold.py (f32 near-exact + bf16 top-1 vs
+`model.apply`, all conv trunk families).
 """
 from __future__ import annotations
 
@@ -49,7 +48,7 @@ _DN = ("NHWC", "HWIO", "NHWC")
 
 def serve_supported(config) -> bool:
     """Conv-family trunks only (classic/btl/nbt + broadcast); the
-    transformer trunk serves through the flax graph."""
+    transformer trunk serves through `model.apply`."""
     return not getattr(config, "is_transformer", False)
 
 
@@ -150,7 +149,7 @@ def serve_forward(model, variables, board_state, game_state,
     params = variables["params"]
     stats = variables["batch_stats"]
     if not serve_supported(cfg):
-        raise ValueError("serve_forward: transformer trunks use the flax graph")
+        raise ValueError("serve_forward: transformer trunks use model.apply")
 
     board_state = board_state.astype(dtype)
     game_state = game_state.astype(dtype)
@@ -180,8 +179,7 @@ def serve_forward(model, variables, board_state, game_state,
 
 def run_heads(params, stats, x, dtype,
               want_optimistic: bool = False) -> ModelOutputs:
-    """Search-consumed heads on a trunk output `x` (shared by the folded
-    bf16 graph above and the int8-activation graph in serve_q.py)."""
+    """Search-consumed heads on a trunk output `x`."""
     # ---- policy head (heads.py PolicyHead), aux/soft skipped ----
     ph, sh = params["policy_head"], stats["policy_head"]
     n = x.shape[0]

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) scale-out skeleton.
 
 The reference scales by fanning self-play binaries across VMs that talk to
-a GCS bus (SURVEY §2.13, python/rl_loop/*). The TPU-native layout instead
+a GCS bus (SURVEY §2.13, python/rl_loop/*). This layout instead
 uses jax.distributed + one global SPMD program:
 
 - every host runs this same process and calls `init_multihost` (GRPC

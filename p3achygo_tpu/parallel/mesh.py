@@ -1,4 +1,4 @@
-"""Device mesh + sharding rules (SURVEY.md §2.13 →TPU).
+"""Device mesh + sharding rules (SURVEY.md §2.13).
 
 The reference scales self-play by one-process-per-GPU over a filesystem bus
 (train_sp_eval.py:345-365) and has only a dormant MirroredStrategy for

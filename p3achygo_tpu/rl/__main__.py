@@ -32,10 +32,9 @@ def main():
     ap.add_argument("--worker-id", default="w0")
     args = ap.parse_args()
 
-    import jax
+    from p3achygo_tpu import compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    compile_cache.enable(min_compile_secs=5)
 
     from p3achygo_tpu.rl.config import parse
     from p3achygo_tpu.rl.loop import GenerationLoop

@@ -88,6 +88,23 @@ from p3achygo_tpu.train.swa import (
 from p3achygo_tpu.train.val import batch_metrics
 
 
+def make_optimizer(cfg: RunConfig):
+    """The run's optimizer. LR is injected as an opt_state hyperparameter
+    so the per-gen schedule (rl_loop/train.py:33-49) updates it without
+    recompiling the train step or resetting momentum."""
+    import optax
+
+    lr0 = lr_for_gen(cfg, 0)
+    if cfg.optimizer == "muon":
+        return optax.inject_hyperparams(
+            conv_muon, static_args=("nesterov", "ns_steps"))(
+            learning_rate=lr0, weight_decay=cfg.muon_wd,
+            wd_lr_exponent=cfg.wd_lr_exponent,
+            wd_lr_max=cfg.wd_lr_max,
+            adam_weight_decay=cfg.adam_wd)
+    return optax.inject_hyperparams(sgd_nesterov)(learning_rate=lr0)
+
+
 class GenerationLoop:
     def __init__(self, cfg: RunConfig, root_dir: str = "runs/local",
                  dtype=jnp.bfloat16, seed: int = 0):
@@ -103,21 +120,7 @@ class GenerationLoop:
         self.val_replay = ReplayBuffer(capacity=1 << 16, seed=seed + 3)
         self.key = jax.random.PRNGKey(seed + 1)
 
-        # LR is injected as an opt_state hyperparameter so the per-gen
-        # schedule (rl_loop/train.py:33-49) updates it without recompiling
-        # the train step or resetting momentum.
-        import optax
-
-        lr0 = lr_for_gen(cfg, 0)
-        if cfg.optimizer == "muon":
-            tx = optax.inject_hyperparams(
-                conv_muon, static_args=("nesterov", "ns_steps"))(
-                learning_rate=lr0, weight_decay=cfg.muon_wd,
-                wd_lr_exponent=cfg.wd_lr_exponent,
-                wd_lr_max=cfg.wd_lr_max,
-                adam_weight_decay=cfg.adam_wd)
-        else:
-            tx = optax.inject_hyperparams(sgd_nesterov)(learning_rate=lr0)
+        tx = make_optimizer(cfg)
         self.tx = tx
         self.train_state = create_train_state(self.variables, tx)
         self._train_step = jax.jit(

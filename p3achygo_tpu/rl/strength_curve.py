@@ -53,10 +53,9 @@ def main():
     ap.add_argument("--anchors-only", action="store_true")
     args = ap.parse_args()
 
-    import jax
+    from p3achygo_tpu import compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    compile_cache.enable(min_compile_secs=5)
 
     from p3achygo_tpu.models import init_params
     from p3achygo_tpu.rl.config import parse

@@ -16,10 +16,11 @@ reference's formats (model_%04d checkpoints, gen..._.tfrecord.zz chunks,
   model_cands/ BEFORE eval, train_sp_eval.py:213-215), and publishes the
   resulting golden to models/.
 
-TPU notes: one actor process per TPU host/slice saturates its chips with
-the lockstep batch; scale-out = more actor processes against the same
-bus. The learner is a separate process (or host) so training and
-selfplay never contend for a chip.
+Deployment: one actor process per GPU saturates it with the lockstep
+batch; scale-out = more actor processes against the same bus. The
+learner is a separate process on its own GPU, so training and selfplay
+never contend for a card (a JAX process reserves most of a card's memory
+when it starts, so two processes cannot share one).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ exponential move sampling, best-of-N / policy / uniform alternative-move
 sampling, double-sampling, score-neutral komi adjustment, end-of-game
 regret scoring feeding the reuse buffer).
 
-TPU redesign: the reference forks DURING the game, issuing on-demand n=1
+Redesign: the reference forks DURING the game, issuing on-demand n=1
 NN evaluations from each selfplay thread (fork_manager.h:524-539
 EvalBoard). Here games run lockstep on the device and forking is deferred
 to HARVEST time: each finished game's recorded per-move arrays (board

@@ -371,7 +371,7 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
 
     The reference picks a search tier per move per thread
     (is_move_selected_for_training, self_play_thread.cc:544-548: selected
-    n=128/k=8 with prob 0.25, else fast n=32/k=5). Lockstep TPU mapping:
+    n=128/k=8 with prob 0.25, else fast n=32/k=5). Lockstep mapping:
     each step draws a fresh uniformly-random subset of exactly
     round(B * trainable_move_prob) boards for the selected tier (sampling
     without replacement instead of per-board coins — same marginal tier

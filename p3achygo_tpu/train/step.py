@@ -1,6 +1,7 @@
 """Jitted training step (mirrors python/train.py train_step :50 semantics:
-forward, compute_losses, grads, apply; bf16 compute needs no loss scaling on
-TPU — fp32 master params, no LossScaleOptimizer)."""
+forward, compute_losses, grads, apply; bf16 compute keeps f32's exponent
+range, so it needs no loss scaling — fp32 master params, no
+LossScaleOptimizer)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Tuple

@@ -1,6 +1,6 @@
 // Parity oracle: compiles the REFERENCE board engine (read-only sources at
 // /root/reference/cc/game + cc/core, built against the absl shims in this
-// directory) into a line-protocol driver, so Python tests can check the TPU
+// directory) into a line-protocol driver, so Python tests can check the JAX
 // board (p3achygo_tpu/game/board.py) move-for-move against the original
 // implementation (BASELINE.md acceptance criterion: fixed-seed
 // move-sequence/score parity).

@@ -1,4 +1,7 @@
 """Model + loss tests (vs model.py heads/losses semantics)."""
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,3 +173,104 @@ def test_mish_matches_reference_formula():
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-6, atol=2e-6)
     assert np.all(np.isfinite(np.asarray(got)))
+
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+def _flat(tree):
+    return {"/".join(k.key for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _golden_variables(golden, prefix="variables/"):
+    """Rebuild the nested variable tree stored flat in the fixture."""
+    tree = {}
+    for key in golden.files:
+        if key.startswith(prefix):
+            node = tree
+            *parents, leaf = key[len(prefix):].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(golden[key])
+    return tree
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(os.path.join(DATA, "model_golden_tiny.npz")) as g:
+        yield {k: g[k] for k in g.files}, _golden_variables(g)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_golden_forward(golden, train):
+    """The tiny config's outputs on fixed inputs and variables equal the
+    ones the model zoo's original definition produced (and, in train
+    mode, its updated batch statistics)."""
+    arrays, variables = golden
+    model = build_model(get_config("tiny"))
+    planes, scalars = arrays["input/planes"], arrays["input/scalars"]
+    with jax.default_matmul_precision("highest"):
+        if train:
+            out, mutated = model.apply(variables, planes, scalars, train=True,
+                                       mutable=["batch_stats"])
+            for k, v in _flat(mutated["batch_stats"]).items():
+                np.testing.assert_allclose(
+                    np.asarray(v), arrays[f"train_batch_stats/{k}"],
+                    rtol=1e-5, atol=1e-6, err_msg=k)
+        else:
+            out = model.apply(variables, planes, scalars, train=False)
+    tag = "train" if train else "eval"
+    for field, value in out._asdict().items():
+        np.testing.assert_allclose(np.asarray(value),
+                                   arrays[f"{tag}/{field}"],
+                                   rtol=1e-5, atol=1e-5, err_msg=field)
+
+
+def test_golden_init_tree_matches_stored_tree(golden):
+    """init_params builds the stored tree: same paths, shapes, dtypes."""
+    _, variables = golden
+    model = build_model(get_config("tiny"))
+    fresh = init_params(model, jax.random.PRNGKey(0))
+    want = {k: (v.shape, v.dtype) for k, v in _flat(variables).items()}
+    got = {k: (v.shape, v.dtype) for k, v in _flat(fresh).items()}
+    assert got == want
+
+
+with open(os.path.join(DATA, "param_tree_manifest.json")) as _f:
+    MANIFEST = json.load(_f)
+
+
+@pytest.mark.parametrize("name", sorted(MANIFEST))
+def test_param_tree_manifest(name):
+    """Every config's variable tree keeps its paths, shapes and dtypes
+    (checkpoints and nn/serve.py read weights by these names)."""
+    model = build_model(get_config(name))
+    shapes = jax.eval_shape(lambda k: init_params(model, k),
+                            jax.random.PRNGKey(0))
+    got = {k: [list(v.shape), str(v.dtype)] for k, v in _flat(shapes).items()}
+    assert got == MANIFEST[name]
+
+
+def test_init_statistics():
+    """Initialisers: lecun-normal kernels (std ~ 1/sqrt(fan_in)), zero
+    biases, BN scale 1 / bias 0 / mean 0 / var 1, zero gamma_output."""
+    model = build_model(get_config("b8c64"))
+    v = init_params(model, jax.random.PRNGKey(3))
+    p, s = v["params"], v["batch_stats"]
+    k = np.asarray(p["bottleneck_res_0"]["inner_0"]["Conv_0"]["kernel"])
+    fan_in = k.shape[0] * k.shape[1] * k.shape[2]
+    assert abs(k.std() * np.sqrt(fan_in) - 1.0) < 0.1
+    np.testing.assert_array_equal(np.asarray(p["init_game_layer"]["bias"]), 0)
+    bn = p["bottleneck_res_0"]["reduce"]["BatchNorm_0"]
+    np.testing.assert_array_equal(np.asarray(bn["scale"]), 1)
+    np.testing.assert_array_equal(np.asarray(bn["bias"]), 0)
+    st = s["bottleneck_res_0"]["reduce"]["BatchNorm_0"]
+    np.testing.assert_array_equal(np.asarray(st["mean"]), 0)
+    np.testing.assert_array_equal(np.asarray(st["var"]), 1)
+    np.testing.assert_array_equal(
+        np.asarray(p["value_head"]["gamma_output"]["kernel"]), 0)
+    # distinct layers get distinct draws
+    assert not np.allclose(
+        np.asarray(p["bottleneck_res_0"]["reduce"]["Conv_0"]["kernel"]),
+        np.asarray(p["bottleneck_res_1"]["reduce"]["Conv_0"]["kernel"]))

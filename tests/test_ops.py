@@ -1,55 +1,81 @@
-"""Pallas kernel parity tests (interpret mode on CPU)."""
+"""The batched liberty pass (game.board.point_liberties_batch) against an
+independent numpy flood-fill oracle."""
 import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from p3achygo_tpu.game import board_from_dsl, new_state, step
-from p3achygo_tpu.ops.liberties import (
+from p3achygo_tpu.game import (
+    board_from_dsl,
     point_liberties_batch,
-    point_liberties_reference,
+    random_positions,
 )
 
 
-def _random_states(B, moves, seed):
-    rng = np.random.default_rng(seed)
-    states = jax.vmap(lambda _: new_state())(jnp.arange(B))
-    from p3achygo_tpu.game import legal_mask
-    for _ in range(moves):
-        masks = np.asarray(jax.vmap(legal_mask)(states))
-        acts = np.array([rng.choice(np.flatnonzero(m[:361]))
-                         for m in masks], np.int32)
-        states, _ = jax.vmap(step)(states, jnp.asarray(acts))
-    return states
+def flood_fill_liberties(stones: np.ndarray) -> np.ndarray:
+    """[361] stones -> [361] liberty count of each stone's chain (0 empty),
+    by breadth-first search over the 19x19 grid."""
+    grid = stones.reshape(19, 19)
+    libs = np.zeros((19, 19), np.int32)
+    seen = np.zeros((19, 19), bool)
+    for r0 in range(19):
+        for c0 in range(19):
+            if grid[r0, c0] == 0 or seen[r0, c0]:
+                continue
+            chain, frontier, empties = [], [(r0, c0)], set()
+            seen[r0, c0] = True
+            while frontier:
+                r, c = frontier.pop()
+                chain.append((r, c))
+                for rr, cc in ((r + 1, c), (r - 1, c), (r, c + 1), (r, c - 1)):
+                    if not (0 <= rr < 19 and 0 <= cc < 19):
+                        continue
+                    if grid[rr, cc] == 0:
+                        empties.add((rr, cc))
+                    elif grid[rr, cc] == grid[r, c] and not seen[rr, cc]:
+                        seen[rr, cc] = True
+                        frontier.append((rr, cc))
+            for r, c in chain:
+                libs[r, c] = len(empties)
+    return libs.reshape(-1)
 
 
-def test_kernel_matches_reference_on_random_boards():
-    states = _random_states(B=5, moves=40, seed=11)
-    ref = np.asarray(point_liberties_reference(states.stones, states.chain_id))
-    ker = np.asarray(point_liberties_batch(states.stones, states.chain_id,
-                                           interpret=True))
-    np.testing.assert_array_equal(ker, ref)
+@pytest.fixture(scope="module")
+def positions():
+    """Random mid-game playouts, 8 boards per seed (one compiled program)."""
+    return {seed: random_positions(jax.random.PRNGKey(seed), 8, 80)
+            for seed in (0, 1, 2)}
 
 
-def test_kernel_on_dsl_position():
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_liberties_match_flood_fill(positions, seed, batch):
+    states = positions[seed]
+    stones = np.asarray(states.stones[:batch])
+    got = np.asarray(point_liberties_batch(states.stones[:batch],
+                                           states.chain_id[:batch]))
+    assert got.shape == (batch, 361) and got.dtype == np.int32
+    want = np.stack([flood_fill_liberties(s) for s in stones])
+    np.testing.assert_array_equal(got, want)
+    assert (stones != 0).sum() > 10 * batch  # real mid-game boards
+
+
+def test_liberties_on_dsl_position():
     st = board_from_dsl(
         """
         x o . . .
         . o o . .
         x x . . .
         """)
-    stones = st.stones[None]
-    chain = st.chain_id[None]
-    ref = np.asarray(point_liberties_reference(stones, chain))
-    ker = np.asarray(point_liberties_batch(stones, chain, interpret=True))
-    np.testing.assert_array_equal(ker, ref)
-    # spot check: white chain (0,1),(1,1),(1,2) libs:
-    # (0,2),(1,0),(2,2),(1,3) = 4
-    assert ker[0, 1] == 4
+    got = np.asarray(point_liberties_batch(st.stones[None],
+                                           st.chain_id[None]))[0]
+    np.testing.assert_array_equal(got, flood_fill_liberties(
+        np.asarray(st.stones)))
+    # white chain (0,1),(1,1),(1,2): libs (0,2),(1,0),(2,2),(1,3) = 4
+    assert got[1] == 4
 
 
-def test_kernel_odd_batch_padding():
-    states = _random_states(B=3, moves=10, seed=5)
-    ref = np.asarray(point_liberties_reference(states.stones, states.chain_id))
-    ker = np.asarray(point_liberties_batch(states.stones, states.chain_id,
-                                           interpret=True))
-    np.testing.assert_array_equal(ker, ref)
+def test_liberties_empty_board_is_zero():
+    st = board_from_dsl(". . .")
+    got = np.asarray(point_liberties_batch(st.stones[None],
+                                           st.chain_id[None]))
+    assert not got.any()

@@ -1,6 +1,6 @@
-"""Serve-graph (BN fold + head pruning) parity vs the flax graph.
+"""Serve-graph (BN fold + head pruning) parity vs `model.apply`.
 
-p3achygo_tpu/nn/serve.py must reproduce the flax model's search-consumed
+p3achygo_tpu/nn/serve.py must reproduce the model's search-consumed
 outputs with the same weights: f32 near-exact (fold is pure algebra),
 bf16 within rounding + top-1 policy agreement. Mirrors the reference's
 engine parity checks (cc/nn/engine/compare_engines.cc)."""
@@ -18,7 +18,7 @@ from p3achygo_tpu.nn.serve import serve_forward, serve_supported
 
 def _randomized_stats(variables, seed):
     """BN running stats straight from init are (0, 1) — randomize them so
-    folding bugs can't hide (same trick as test_trunk_kernel.py)."""
+    folding bugs can't hide."""
     k = [jax.random.PRNGKey(seed)]
 
     def rnd(x):
@@ -117,7 +117,7 @@ def test_serve_fold_bf16(config_name):
 
 
 def test_serve_fold_through_eval_fn():
-    """make_eval_fn(serve_fold=True) matches the flax eval path on every
+    """make_eval_fn(serve_fold=True) matches the model.apply eval path on every
     EvalOutput field (bf16 tolerances) and stays jit-able."""
     from p3achygo_tpu.game.board import new_state
     from p3achygo_tpu.mcts.gumbel import make_eval_fn
